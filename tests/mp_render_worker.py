@@ -17,14 +17,16 @@ import sys
 # regardless of how the parent pytest was invoked
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_compilation_cache")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.0")
 
 import jax
 
+from tracer.utils import compile_cache
+
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 2)
+compile_cache.enable()
 
 
 def main() -> int:

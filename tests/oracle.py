@@ -272,11 +272,12 @@ def _scatter(scene, rng, o_in, d_in, point, normal, front_face, mat, albedo,
     return point, normal, albedo, False  # DIFFUSE_LIGHT
 
 
-def ray_color(scene, rng, origin, direction, background, max_depth, rng_mode="fixed"):
+def ray_color(scene, rng, origin, direction, background, max_depth, rng_mode="fixed",
+              rr_start=None):
     final = np.zeros(3, F)
     beta = np.ones(3, F)
     o, d = origin.astype(F), direction.astype(F)
-    for _ in range(max_depth):
+    for depth in range(max_depth):
         hit = _nearest_hit(scene, o, d)
         if hit is None:
             final += beta * background
@@ -313,12 +314,25 @@ def ray_color(scene, rng, origin, direction, background, max_depth, rng_mode="fi
             break
         beta = (beta * att).astype(F)
         o, d = new_o.astype(F), new_d.astype(F)
+        if rr_start is not None:
+            # throughput Russian roulette: one extra draw every bounce,
+            # kill with probability 1 - max(beta), rescale survivors by 1/p
+            u_rr = rng.random_float()
+            if depth >= rr_start:
+                p = F(min(max(float(beta.max()), 0.05), 1.0))
+                if u_rr >= p:
+                    break
+                beta = (beta * (F(1.0) / p)).astype(F)
     return final
 
 
 def render(scene, cam, width, height, spp, max_depth, reference_quirk=True,
-           rng_mode="fixed"):
-    """Full-frame scalar render; returns [H, W, 3] raw sample sums."""
+           rng_mode="fixed", sample_start=0, stratify=False, rr_start=None):
+    """Full-frame scalar render; returns [H, W, 3] raw sample sums of the
+    global samples [sample_start, sample_start + spp). `stratify` puts
+    sample s in cell (s % k, s // k) of a k x k sub-pixel grid,
+    k = sqrt(spp)."""
+    k = int(round(spp ** 0.5)) if stratify else 0
     fb = np.zeros((height, width, 3), F)
     origin = cam["origin"].astype(F)
     for j in range(height):
@@ -326,18 +340,23 @@ def render(scene, cam, width, height, spp, max_depth, reference_quirk=True,
             lin = (i * width + j) if reference_quirk else (j * width + i)
             base = wang_hash(lin & M32)
             acc = np.zeros(3, F)
-            for s in range(spp):
+            for s in range(sample_start, sample_start + spp):
                 rng = Rng(wang_hash((base + s) & M32))
                 pc = (
                     cam["pixel00_loc"]
                     + F(i) * cam["pixel_delta_u"]
                     + F(j) * cam["pixel_delta_v"]
                 ).astype(F)
-                ox = rng.random_float() - F(0.5)
-                oy = rng.random_float() - F(0.5)
+                ox = rng.random_float()
+                oy = rng.random_float()
+                if k:
+                    ox = (F(s % k) + ox) / F(k) - F(0.5)
+                    oy = (F(s // k) + oy) / F(k) - F(0.5)
+                else:
+                    ox, oy = ox - F(0.5), oy - F(0.5)
                 sample = (pc + ox * cam["pixel_delta_u"] + oy * cam["pixel_delta_v"]).astype(F)
                 d = (sample - origin).astype(F)
                 acc += ray_color(scene, rng, origin, d, cam["background"], max_depth,
-                                 rng_mode=rng_mode)
+                                 rng_mode=rng_mode, rr_start=rr_start)
             fb[j, i] = acc
     return fb

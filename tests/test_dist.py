@@ -83,9 +83,10 @@ class TestShardedGrads:
 
 class TestGraftEntry:
     def test_entry_compiles(self):
+        import os
         import sys
 
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         import __graft_entry__ as ge
 
         fn, args = ge.entry()
@@ -94,9 +95,10 @@ class TestGraftEntry:
         assert np.isfinite(np.asarray(out)).all()
 
     def test_dryrun_multichip(self):
+        import os
         import sys
 
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         import __graft_entry__ as ge
 
         ge.dryrun_multichip(8)
@@ -234,246 +236,107 @@ class TestMultiProcess:
 
 
 class TestPallasSharded:
-    """Round-2 VERDICT item 5: the fused megakernel composes with the
-    mesh (shard_map over row bands, global row offset keeps seeds and
-    camera math identical to single-device)."""
+    """Sharded gradients with the backward in spp chunks
+    (sharding.l2_grads_deep_sharded, the config-5 runner): loss and every
+    gradient leaf match the single-device tracer.opt.grads.l2_grads_deep
+    up to f32 reduction order."""
 
-    def test_pallas_sharded_bit_identical(self, mesh):
+    def _scene(self, textured=False):
         import io as _io
 
-        from tracer.pallas import megakernel
         from tracer.scene import builders, config
 
         params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
         scene = builders.create_scene(params, with_bvh=False,
                                       texture_loader=lambda _: None)
-        w, h = 64, 44  # 44 rows over 8 devices: uneven bands + padding
+        if textured:
+            g = np.random.default_rng(7)
+            tex = jnp.asarray(g.uniform(0.2, 1.0, (1, 40, 56, 3)).astype(np.float32))
+            tid = np.asarray(scene.materials.tex_id).copy()
+            tid[0] = 0
+            scene = scene._replace(
+                textures=tex,
+                materials=scene.materials._replace(tex_id=jnp.asarray(tid)),
+            )
+        return scene
+
+    def _check(self, mesh, textured=False, spp=4, spp_chunk=2):
+        from tracer.opt import grads
+
+        scene = self._scene(textured)
+        w, h, depth = 32, 20, 3  # 640 px over 8 devices; 20 rows
         cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0)
-        single = np.asarray(
-            megakernel.render_frame_pallas(
-                scene, cam, w, h, 2, 4, interpret=True
-            )
-        )
-        shard = np.asarray(
-            sharding.render_frame_pallas_sharded(
-                scene, cam, w, h, 2, 4, mesh, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(shard, single)
+        target = np.zeros((h, w, 3), np.float32)
 
-    def test_rr_start_sharded_bit_identical(self, mesh):
-        """--rr on a mesh must actually apply Russian roulette (it was
-        silently dropped, advisor round-2 medium) and stay bit-identical
-        to the single-device engines — RR kill decisions are per-pixel
-        deterministic streams, invisible to the shard split."""
-        import io as _io
-
-        from tracer.pallas import megakernel
-        from tracer.scene import builders, config
-
-        params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
-        scene = builders.create_scene(params, with_bvh=False,
-                                      texture_loader=lambda _: None)
-        w, h = 64, 44
-        cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0)
-        single = np.asarray(
-            megakernel.render_frame_pallas(
-                scene, cam, w, h, 2, 6, interpret=True, rr_start=2
-            )
-        )
-        norr = np.asarray(
-            megakernel.render_frame_pallas(
-                scene, cam, w, h, 2, 6, interpret=True
-            )
-        )
-        assert not np.array_equal(single, norr), "rr_start=2 must change rays"
-        shard = np.asarray(
-            sharding.render_frame_pallas_sharded(
-                scene, cam, w, h, 2, 6, mesh, interpret=True, rr_start=2
-            )
-        )
-        np.testing.assert_array_equal(shard, single)
-        xla_single = np.asarray(
-            renderer.render_frame(scene, cam, w, h, 2, 6, rr_start=2)
-        )
-        xla_shard = np.asarray(
-            sharding.render_frame_sharded(
-                scene, cam, w, h, 2, 6, mesh, rr_start=2
-            )
-        )
-        np.testing.assert_array_equal(xla_shard, xla_single)
-
-    def test_driver_pallas_mesh(self, tmp_path):
-        import io as _io
-
-        from tracer.render import driver
-        from tracer.scene import builders, config
-
-        params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
-        params.width, params.height = 32, 16
-        params.num_frames = 1
-        params.render.sqrt_rays_per_pixel = 1
-        params.render.max_depth = 2
-        params.output_path = str(tmp_path / "pm_%d.bin")
-        scene = builders.create_scene(params, texture_loader=lambda _: None)
-        mesh = sharding.make_mesh(jax.devices()[:8])
-        fb_m = driver.render_animation(scene, params, engine="pallas",
-                                       mesh=mesh, out=_io.StringIO())
-        fb_s = driver.render_animation(scene, params, engine="pallas",
-                                       out=_io.StringIO())
-        np.testing.assert_array_equal(np.asarray(fb_m), np.asarray(fb_s))
-
-    def test_sharded_replay_grads_match_xla(self, mesh):
-        """Distributed fast-gradient step (record + replay VJP under
-        shard_map, psum'd scene cotangents) == the sharded XLA grads."""
-        import io as _io
-
-        import jax.numpy as jnp
-
-        from tracer.scene import builders, config
-        from tracer.render import renderer as R
-
-        params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
-        scene = builders.create_scene(params, with_bvh=False,
-                                      texture_loader=lambda _: None)
-        w, h, spp, depth = 32, 20, 2, 3  # 20 rows / 8 devices: padded bands
-        cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0)
-        target = np.asarray(
-            R.render_frame(scene, cam, w, h, spp=spp, max_depth=depth, chunk=w * h)
-        ) / spp * 0.9
-        l_ref, g_ref = sharding.scene_grads_sharded(
-            scene, cam, target, w, h, spp, depth, mesh
-        )
-        l_new, g_new = sharding.scene_grads_replay_sharded(
-            scene, cam, jnp.asarray(target), w, h, spp, depth, mesh, interpret=True
-        )
-        np.testing.assert_allclose(float(l_new), float(l_ref), rtol=1e-6)
-        for a, b in zip(jax.tree_util.tree_leaves(g_new),
-                        jax.tree_util.tree_leaves(g_ref)):
+        l_ref, gs_ref, gc_ref = grads.l2_grads_deep(
+            scene, cam, target, w, h, spp, depth, spp_chunk=spp_chunk)
+        l_sh, gs_sh, gc_sh = sharding.l2_grads_deep_sharded(
+            scene, cam, target, w, h, spp, depth, mesh, spp_chunk=spp_chunk)
+        np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-6)
+        for a, b in zip(
+            jax.tree_util.tree_leaves(gs_sh) + jax.tree_util.tree_leaves(gc_sh),
+            jax.tree_util.tree_leaves(gs_ref) + jax.tree_util.tree_leaves(gc_ref),
+        ):
             if jnp.issubdtype(a.dtype, jnp.floating):
                 tol = 1e-5 * max(1.0, float(np.abs(np.asarray(b)).max()))
-                np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol)
+                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                           atol=tol, rtol=1e-4)
+        return gs_ref
 
     def test_sharded_kernel_backward_matches_unsharded(self, mesh):
-        """Round-3 config-5 runner (l2_grads_deep_sharded: row bands +
-        spp chunks + fused Pallas backward, cotangents psum'd): loss and
-        every gradient leaf must match the unsharded chunked path."""
-        import io as _io
-
-        import jax.numpy as jnp
-
-        from tracer.pallas import bwd
-        from tracer.scene import builders, config
-
-        params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
-        scene = builders.create_scene(params, with_bvh=False,
-                                      texture_loader=lambda _: None)
-        w, h, spp, depth = 32, 20, 4, 3  # 20 rows / 8 devices: padded bands
-        cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0)
-        target = np.zeros((h, w, 3), np.float32)
-
-        l_ref, gs_ref, gc_ref = bwd.l2_grads_deep(
-            scene, cam, target, w, h, spp, depth, spp_chunk=2, interpret=True)
-        l_sh, gs_sh, gc_sh = sharding.l2_grads_deep_sharded(
-            scene, cam, target, w, h, spp, depth, mesh, spp_chunk=2,
-            interpret=True)
-        np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-6)
-        for a, b in zip(
-            jax.tree_util.tree_leaves(gs_sh) + jax.tree_util.tree_leaves(gc_sh),
-            jax.tree_util.tree_leaves(gs_ref) + jax.tree_util.tree_leaves(gc_ref),
-        ):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                tol = 1e-5 * max(1.0, float(np.abs(np.asarray(b)).max()))
-                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                           atol=tol, rtol=1e-4)
+        self._check(mesh)
 
     def test_sharded_kernel_backward_texture_grads(self, mesh):
-        """texture_grads=True through the sharded config-5 runner: the
-        13-field tape + extra psum'd texture-cotangent block must match
-        the unsharded path leaf-for-leaf, INCLUDING a nonzero texture
-        image gradient (round-5 fix: the flag must be static under jit,
-        and the kernel linearization must not discard the differentiated
-        texel rows)."""
-        import io as _io
+        """Textured scene: the texture image's gradient comes from
+        autodiff, is nonzero, and matches leaf for leaf."""
+        gs = self._check(mesh, textured=True)
+        assert float(np.abs(np.asarray(gs.textures)).max()) > 0.0
 
-        import jax.numpy as jnp
+    @pytest.mark.parametrize("n_dev", [2, 4, 8])
+    def test_sharded_chunked_grads_any_mesh_size(self, n_dev):
+        self._check(sharding.make_mesh(jax.devices()[:n_dev]), spp=2, spp_chunk=1)
 
-        from tracer.pallas import bwd
-        from tracer.scene import builders, config
 
-        params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
-        scene = builders.create_scene(params, with_bvh=False,
-                                      texture_loader=lambda _: None)
-        g = np.random.default_rng(7)
-        tex = jnp.asarray(g.uniform(0.2, 1.0, (1, 40, 56, 3)).astype(np.float32))
-        tid = np.asarray(scene.materials.tex_id).copy()
-        tid[0] = 0
-        scene = scene._replace(
-            textures=tex,
-            materials=scene.materials._replace(tex_id=jnp.asarray(tid)),
-        )
-        w, h, spp, depth = 32, 20, 4, 3
-        cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0)
-        target = np.zeros((h, w, 3), np.float32)
+def _bvh_scene():
+    from tracer.bvh import builder as bvh_builder
 
-        l_ref, gs_ref, gc_ref = bwd.l2_grads_deep(
-            scene, cam, target, w, h, spp, depth, spp_chunk=2, interpret=True,
-            texture_grads=True)
-        l_sh, gs_sh, gc_sh = sharding.l2_grads_deep_sharded(
-            scene, cam, target, w, h, spp, depth, mesh, spp_chunk=2,
-            interpret=True, texture_grads=True)
-        np.testing.assert_allclose(float(l_sh), float(l_ref), rtol=1e-6)
-        assert float(np.abs(np.asarray(gs_ref.textures)).max()) > 0.0
-        for a, b in zip(
-            jax.tree_util.tree_leaves(gs_sh) + jax.tree_util.tree_leaves(gc_sh),
-            jax.tree_util.tree_leaves(gs_ref) + jax.tree_util.tree_leaves(gc_ref),
-        ):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                tol = 1e-5 * max(1.0, float(np.abs(np.asarray(b)).max()))
-                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                           atol=tol, rtol=1e-4)
+    scene = _scene()
+    bvh = bvh_builder.build_bvh_arrays(
+        np.asarray(scene.spheres.center), np.asarray(scene.spheres.radius),
+        np.asarray(scene.planes.base), np.asarray(scene.planes.u),
+        np.asarray(scene.planes.v), np.asarray(scene.planes.ptype),
+    )
+    return scene._replace(bvh=bvh)
 
-    def test_sharded_replay_grads_textured(self, mesh):
-        """Textured sharded fast-gradient step: the record under
-        shard_map also emits the texture-multiplier tape (extra out_spec)
-        and the replay consumes it per band. Loss/grads must match the
-        sharded XLA path on every leaf except the texture image (whose
-        gradient the tape deliberately stops)."""
-        import io as _io
 
-        import jax.numpy as jnp
+def _textured_scene():
+    scene = _scene()
+    g = np.random.default_rng(2)
+    tex = jnp.asarray(g.uniform(0.2, 1.0, (1, 24, 32, 3)).astype(np.float32))
+    return scene._replace(
+        textures=tex,
+        materials=scene.materials._replace(tex_id=jnp.asarray([-1, 0, -1], jnp.int32)),
+    )
 
-        from tracer.scene import builders, config
-        from tracer.render import renderer as R
 
-        params = config.read_scene_params(_io.StringIO(config.smoke_config_text()))
-        scene = builders.create_scene(params, with_bvh=False,
-                                      texture_loader=lambda _: None)
-        g = np.random.default_rng(3)
-        tex = jnp.asarray(g.uniform(0.2, 1.0, (1, 40, 56, 3)).astype(np.float32))
-        tid = np.asarray(scene.materials.tex_id).copy()
-        tid[0] = 0
-        scene = scene._replace(
-            textures=tex,
-            materials=scene.materials._replace(tex_id=jnp.asarray(tid)))
-        w, h, spp, depth = 32, 16, 2, 3
-        cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0)
-        target = np.asarray(
-            R.render_frame(scene, cam, w, h, spp=spp, max_depth=depth, chunk=w * h)
-        ) / spp * 0.9
-        l_ref, g_ref = sharding.scene_grads_sharded(
-            scene, cam, target, w, h, spp, depth, mesh
-        )
-        l_new, g_new = sharding.scene_grads_replay_sharded(
-            scene, cam, jnp.asarray(target), w, h, spp, depth, mesh, interpret=True
-        )
-        np.testing.assert_allclose(float(l_new), float(l_ref), rtol=1e-5)
-        # compare everything except the texture image (tape stops it) and
-        # geometry leaves on textured surfaces (frozen-texel convention)
-        np.testing.assert_allclose(
-            np.asarray(g_new.materials.albedo), np.asarray(g_ref.materials.albedo),
-            atol=1e-5 * max(1.0, float(np.abs(np.asarray(g_ref.materials.albedo)).max())))
-        np.testing.assert_allclose(
-            np.asarray(g_new.materials.emit), np.asarray(g_ref.materials.emit),
-            atol=1e-5 * max(1.0, float(np.abs(np.asarray(g_ref.materials.emit)).max())))
-        assert float(np.abs(np.asarray(g_new.textures)).max()) == 0.0
+# mode -> (scene factory, render_frame keyword arguments)
+SHARDED_MODES = {
+    "rr": (_scene, dict(spp=2, max_depth=6, rr_start=1)),
+    "stratify": (_scene, dict(spp=4, max_depth=3, stratify=True)),
+    "ref_rng": (_scene, dict(spp=2, max_depth=3, rng_mode="reference")),
+    "textured": (_textured_scene, dict(spp=2, max_depth=3)),
+    "bvh": (_bvh_scene, dict(spp=2, max_depth=3, intersector="bvh")),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SHARDED_MODES))
+def test_sharded_render_matches_single_device(mesh, mode):
+    """Tile sharding only partitions the pixel axis, so every render mode
+    gives the single-device frame."""
+    make_scene, kw = SHARDED_MODES[mode]
+    scene, cam = make_scene(), _cam()
+    fb1 = np.asarray(renderer.render_frame(scene, cam, W, H, chunk=W * H, **kw))
+    fb8 = np.asarray(sharding.render_frame_sharded(scene, cam, W, H, mesh=mesh,
+                                                   chunk=W * H, **kw))
+    np.testing.assert_allclose(fb8, fb1, atol=1e-6)
+    assert fb1.max() > 0

@@ -60,26 +60,6 @@ class TestAnimationDriver:
         assert os.path.exists(tmp_path / "f_0.bin")
         assert os.path.exists(tmp_path / "f_1.bin")
 
-    def test_pallas_spp_chunking_matches_one_dispatch(self, tmp_path):
-        """The driver's auto spp-chunking (bounds single-dispatch
-        duration at reference-scale sample counts) must reproduce the
-        one-dispatch frame: disjoint global sample ids via sample_start,
-        summed — identical estimator up to f32 addition order."""
-        params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
-        params.width, params.height = 24, 8
-        params.num_frames = 1
-        params.render.sqrt_rays_per_pixel = 2  # spp 4
-        params.render.max_depth = 3
-        scene = builders.create_scene(params, texture_loader=lambda _: None)
-        fbs = {}
-        for name, ch in (("one", 4), ("chunked", 1)):
-            params.output_path = str(tmp_path / f"{name}_%d.bin")
-            fbs[name] = np.asarray(driver.render_animation(
-                scene, params, engine="pallas", out=io.StringIO(),
-                spp_chunk=ch))
-        np.testing.assert_allclose(fbs["chunked"], fbs["one"],
-                                   rtol=1e-6, atol=1e-6)
-
     def test_frames_subset(self, tmp_path):
         params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
         params.width, params.height = 8, 8
@@ -90,6 +70,32 @@ class TestAnimationDriver:
         scene = builders.create_scene(params, texture_loader=lambda _: None)
         driver.render_animation(scene, params, frames=[3, 7], out=io.StringIO())
         assert sorted(os.listdir(tmp_path)) == ["g_3.bin", "g_7.bin"]
+
+
+class TestCliDevice:
+    @pytest.mark.parametrize("flag", ["--pallas", "--fast-math"])
+    def test_removed_kernel_flags_are_rejected(self, flag, capsys):
+        from tracer import cli as cli_mod
+
+        with pytest.raises(SystemExit) as e:
+            cli_mod.main([flag, "--config", "unused.cfg"])
+        assert e.value.code == 2
+        assert flag in capsys.readouterr().err
+
+    @pytest.mark.parametrize("argv", [[], ["--gpu"], ["--backend", "gpu"]])
+    def test_no_gpu_is_an_error(self, argv, capsys):
+        """Without --cpu the CLI renders on the GPU or not at all (the
+        tests run on the CPU backend)."""
+        from tracer import cli as cli_mod
+
+        rc = cli_mod.main(argv + ["--config", "unused.cfg"])
+        assert rc != 0
+        assert "no GPU" in capsys.readouterr().err
+
+    def test_cpu_and_gpu_are_exclusive(self):
+        from tracer import cli as cli_mod
+
+        assert cli_mod.main(["--cpu", "--gpu", "--config", "unused.cfg"]) == 2
 
 
 @pytest.mark.slow
@@ -112,8 +118,8 @@ class TestCliSubprocess:
         assert "bad config" in r.stderr
 
     def test_flag_wiring_rr_fastmath_png(self, tmp_path):
-        """--rr/--fast-math/--pallas/--format png wire through main() to a
-        rendered frame (in-process; CPU interpret mode)."""
+        """--rr/--format png wire through main() to a rendered frame
+        (in-process, on the CPU)."""
         from tracer import cli as cli_mod
 
         cfg = config.smoke_config_text().replace("200 100 90", "24 16 90")
@@ -121,7 +127,7 @@ class TestCliSubprocess:
         cfg_path = tmp_path / "c.cfg"
         cfg_path.write_text(cfg)
         rc = cli_mod.main([
-            "--cpu", "--config", str(cfg_path), "--pallas", "--fast-math",
+            "--cpu", "--config", str(cfg_path),
             "--rr", "2", "--format", "png", "--frames", "1",
         ])
         assert rc == 0

@@ -11,6 +11,7 @@ flips within +-h, so FD and AD see the same smooth branch).
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from tracer.render import camera as C
 from tracer.render import renderer
@@ -150,150 +151,89 @@ class TestSceneGradients:
                 assert np.isfinite(np.asarray(leaf)).all()
 
 
-class TestReplayVJP:
-    """Round-2 fast backward: record-forward + gather-replay VJP
-    (tracer.pallas.replay) must agree with the remat oracle."""
-
-    def test_replay_reproduces_recorded_forward(self):
-        from tracer.pallas import megakernel, replay
-
-        scene = _scene()
-        fb, idx = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True
-        )
-        fb_rep = replay.render_frame_replay(scene, _cam(), idx, W, H, SPP, DEPTH)
-        # same streams and branches; only ulp-level f32 phrasing differs
-        np.testing.assert_allclose(np.asarray(fb_rep), np.asarray(fb), atol=1e-6)
-
-    def test_persistent_record_matches_sample_loop_tape(self):
-        """The persistent kernel's scatter-recorded tape must agree with
-        the sample-loop tape on every live bounce (dead-lane slots are -1
-        in persistent mode vs garbage in sample-loop mode; the replay
-        masks both), and replay radiance must be identical."""
-        from tracer.pallas import megakernel, replay
-
-        scene = _scene()
-        fb_s, idx_s = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True, persistent=False
-        )
-        fb_p, idx_p = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True, persistent=True
-        )
-        np.testing.assert_array_equal(np.asarray(fb_s), np.asarray(fb_p))
-        a, b = np.asarray(idx_s), np.asarray(idx_p)
-        live = b != -1
-        assert live.any()
-        np.testing.assert_array_equal(a[live], b[live])
-        r_s = replay.render_frame_replay(scene, _cam(), idx_s, W, H, SPP, DEPTH)
-        r_p = replay.render_frame_replay(scene, _cam(), idx_p, W, H, SPP, DEPTH)
-        np.testing.assert_array_equal(np.asarray(r_s), np.asarray(r_p))
-
-    def test_replay_grads_match_remat(self):
-        from tracer.pallas import diff as pdiff
-
-        scene = _scene()
-
-        def loss(scene, mode):
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                         mode=mode)
-            return jnp.sum(fb * fb) / (W * H * SPP)
-
-        g_rep = jax.grad(lambda s: loss(s, "replay"), allow_int=True)(scene)
-        g_rem = jax.grad(lambda s: loss(s, "remat"), allow_int=True)(scene)
-        for a, b in zip(jax.tree_util.tree_leaves(g_rep),
-                        jax.tree_util.tree_leaves(g_rem)):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                an, bn = np.asarray(a), np.asarray(b)
-                tol = 1e-5 * max(1.0, float(np.abs(bn).max()))
-                np.testing.assert_allclose(an, bn, atol=tol, rtol=1e-4)
-
-    def test_rr_record_replay(self):
-        """rr_start composes with record/replay (round 3): the recorded
-        forward with RR must match the plain RR forward, the replay must
-        reproduce it (kill decisions recomputed from the streams, never
-        misread as background misses), and replay gradients must match
-        the remat oracle differentiating the same RR estimator."""
-        from tracer.pallas import diff as pdiff
-        from tracer.pallas import megakernel, replay
-
-        scene = _scene()
-        rr = 2
-        plain = megakernel.render_frame_pallas(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True, rr_start=rr
-        )
-        fb, idx = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True, rr_start=rr
-        )
-        np.testing.assert_array_equal(np.asarray(fb), np.asarray(plain))
-        norr = megakernel.render_frame_pallas(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True
-        )
-        assert not np.array_equal(np.asarray(plain), np.asarray(norr)), \
-            "rr_start must actually kill paths at this depth"
-        fb_rep = replay.render_frame_replay(
-            scene, _cam(), idx, W, H, SPP, DEPTH, rr_start=rr
-        )
-        np.testing.assert_allclose(np.asarray(fb_rep), np.asarray(fb), atol=1e-5)
-
-        def loss(scene, mode):
-            fbd = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                          mode=mode, rr_start=rr)
-            return jnp.sum(fbd * fbd) / (W * H * SPP)
-
-        g_rep = jax.grad(lambda s: loss(s, "replay"), allow_int=True)(scene)
-        g_rem = jax.grad(lambda s: loss(s, "remat"), allow_int=True)(scene)
-        for a, b in zip(jax.tree_util.tree_leaves(g_rep),
-                        jax.tree_util.tree_leaves(g_rem)):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                an, bn = np.asarray(a), np.asarray(b)
-                tol = 1e-5 * max(1.0, float(np.abs(bn).max()))
-                np.testing.assert_allclose(an, bn, atol=tol, rtol=1e-4)
+def _textured(scene):
+    """`scene` with its first material (sphere 0) textured."""
+    g = np.random.default_rng(5)
+    tex = g.uniform(0.2, 1.0, size=(1, 40, 56, 3)).astype(np.float32)
+    tex_id = np.asarray(scene.materials.tex_id).copy()
+    tex_id[0] = 0
+    return scene._replace(
+        textures=jnp.asarray(tex),
+        materials=scene.materials._replace(tex_id=jnp.asarray(tex_id)),
+    )
 
 
-class TestTexturedReplayGrads:
-    def test_textured_replay_grads_match_remat(self):
-        """Textured scene: replay-VJP gradients (texture multipliers from
-        the recorded tape, texture IMAGE stop-gradded) must match the
-        remat oracle on every leaf except the texture image itself."""
-        import jax
-        import jax.numpy as jnp
+def _with(scene, group, field, idx, v):
+    sub = getattr(scene, group)
+    return scene._replace(**{group: sub._replace(**{field: getattr(sub, field).at[idx].set(v)})})
 
-        from tracer.pallas import diff as pdiff
 
-        scene = _scene()
-        g = np.random.default_rng(5)
-        tex = g.uniform(0.2, 1.0, size=(1, 40, 56, 3)).astype(np.float32)
-        mats = scene.materials
-        tex_id = np.asarray(mats.tex_id).copy()
-        tex_id[0] = 0  # first material textured
-        scene = scene._replace(
-            textures=jnp.asarray(tex),
-            materials=mats._replace(tex_id=jnp.asarray(tex_id)),
-        )
+# A bright sky lights every surface, so each leaf moves the loss well
+# above the f32 resolution of a central difference.
+SKY = (0.8, 0.9, 1.0)
 
-        def loss(scene, mode):
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                         mode=mode)
-            return jnp.mean(fb * fb)
 
-        g_rep = jax.grad(lambda s: loss(s, "replay"), allow_int=True)(scene)
-        g_smp = jax.grad(lambda s: loss(s, "replay-sample"), allow_int=True)(scene)
-        g_rem = jax.grad(lambda s: loss(s, "remat"), allow_int=True)(scene)
-        # material gradients: exact in BOTH replay modes
-        for g_fast in (g_rep, g_smp):
-            np.testing.assert_allclose(
-                np.asarray(g_fast.materials.albedo),
-                np.asarray(g_rem.materials.albedo), rtol=1e-4, atol=1e-7)
-        # geometry gradients: the sampling replay keeps the d(texel)/d(uv)
-        # term and matches the oracle; the tape replay freezes the texel
-        # (documented approximation) so only the sampling mode is pinned
-        np.testing.assert_allclose(
-            np.asarray(g_smp.spheres.center), np.asarray(g_rem.spheres.center),
-            rtol=1e-4, atol=1e-6)
-        # the texture image gradient is deliberately stopped in replay
-        assert float(np.abs(np.asarray(g_rep.textures)).max()) == 0.0
-        assert float(np.abs(np.asarray(g_smp.textures)).max()) == 0.0
-        assert float(np.abs(np.asarray(g_rem.textures)).max()) > 0.0
+def _sky_cam(origin_x=5.0):
+    return C.build_camera_data(
+        jnp.stack([jnp.float32(origin_x), jnp.float32(-6.0), jnp.float32(3.0)]),
+        [0.0, 0.0, 1.0], W, H, 55.0, background=SKY,
+    )
+
+
+def _origin_x(scene, v):
+    return scene, _sky_cam(v)
+
+
+# name -> (value at the base scene, (scene, v) -> (scene, cam), FD step)
+PROBES = {
+    "center_z": (1.0, lambda s, v: (_with(s, "spheres", "center", (0, 2), v), None), 2e-3),
+    "radius": (1.0, lambda s, v: (_with(s, "spheres", "radius", 0, v), None), 2e-3),
+    "camera_origin": (5.0, _origin_x, 2e-3),
+    "albedo": (0.7, lambda s, v: (_with(s, "materials", "albedo", (0, 0), v), None), 1e-3),
+    "emit": (5.0, lambda s, v: (_with(s, "materials", "emit", (3, 1), v), None), 1e-2),
+    "absorption": (0.5, lambda s, v: (_with(s, "materials", "absorption", (2, 1), v), None), 2e-3),
+    # a direction in texture space: every texel scaled by (1 + v)
+    "texture": (0.0, lambda s, v: (s._replace(textures=s.textures * (1.0 + v)), None), 1e-3),
+}
+# Under a uniform sky, geometry moves the image only through texture
+# coordinates (and silhouettes, which have no derivative), so geometry
+# and texture probes run on the textured scene.
+FD_CASES = (
+    [(p, v) for p in ("center_z", "radius", "camera_origin", "texture")
+     for v in ("textured", "textured_rr")]
+    + [(p, v) for p in ("albedo", "emit", "absorption")
+       for v in ("rr", "textured", "textured_rr")]
+)
+
+
+def _fd_case(probe, textured, rr_start):
+    v0, set_v, h = PROBES[probe]
+    scene = _textured(_scene()) if textured else _scene()
+
+    def loss_of(v):
+        s, cam = set_v(scene, v)
+        fb = renderer.render_frame(s, cam or _sky_cam(), W, H, spp=SPP, max_depth=DEPTH,
+                                   chunk=W * H, rr_start=rr_start)
+        return jnp.sum(fb * fb) / (W * H * SPP)
+
+    v0 = jnp.float32(v0)
+    g_ad = float(jax.grad(loss_of)(v0))
+    g_fd = float((loss_of(v0 + h) - loss_of(v0 - h)) / (2 * h))
+    return g_ad, g_fd
+
+
+@pytest.mark.parametrize("probe,variant", FD_CASES)
+def test_ad_matches_finite_differences(probe, variant):
+    """jax.grad against central differences for each differentiable leaf,
+    with Russian roulette on and on a textured scene. At these parameters
+    no discrete decision (hit, RNG gate, roulette kill) flips within
+    +-h, so both see the same smooth branch. Every case has a gradient
+    well above the f32 resolution of the difference (~1e-4)."""
+    g_ad, g_fd = _fd_case(probe, textured="textured" in variant,
+                          rr_start=1 if variant.endswith("rr") else None)
+    atol = 5e-4
+    assert abs(g_fd) > 5 * atol, f"gradient too small to check: fd={g_fd}"
+    assert abs(g_ad - g_fd) <= 0.08 * abs(g_fd) + atol, f"ad={g_ad} fd={g_fd}"
 
 
 class TestMaskedBranchNaN:
@@ -318,6 +258,30 @@ class TestMaskedBranchNaN:
         g = jax.grad(f)(jnp.float32(1.0))
         assert np.isfinite(float(g)), g
 
+    @pytest.mark.parametrize("intersector", ["fast", "brute"])
+    def test_tangent_ray_grad_finite(self, intersector):
+        """A ray tangent to a sphere has discriminant exactly 0, where
+        sqrt' is infinite; the non-winning roots get a zero cotangent, and
+        0 * inf poisoned the sphere gradient (seen at 1080x720 on the GPU)."""
+        from tracer.render import hit as hit_mod
+        from tracer.render import hit_fast
+
+        spheres = T.make_spheres([[0.0, 0.0, 0.0]], [1.0], [0])
+        planes = T.make_planes([T.QUAD], [[-5, -5, -3]], [[10, 0, 0]], [[0, 10, 0]], [0])
+        mats = T.make_materials([T.LAMBERTIAN], [0], [1], [[0, 0, 0]],
+                                [[0.5, 0.5, 0.5]], [[0, 0, 0]], [-1])
+        scene = T.Scene(spheres, planes, mats, None, None)
+        o = jnp.array([[1.0, 0.0, 5.0], [0.3, 0.2, 5.0]])  # ray 0: disc == 0
+        d = jnp.array([[0.0, 0.0, -1.0], [0.0, 0.0, -1.0]])
+        hit_fn = hit_fast.hit_scene_fast if intersector == "fast" else hit_mod.hit_scene_brute
+
+        def f(center):
+            s = scene._replace(spheres=scene.spheres._replace(center=center))
+            rec = hit_fn(s, o, d)
+            return jnp.sum(rec.point) + jnp.sum(rec.normal)
+
+        assert np.isfinite(np.asarray(jax.grad(f)(spheres.center))).all()
+
     def test_length_grad_finite_at_zero(self):
         from tracer.core import vec
 
@@ -328,321 +292,79 @@ class TestMaskedBranchNaN:
         assert np.isfinite(np.asarray(g)).all()
 
 
-class TestKernelBackward:
-    """Round-3 fused Pallas backward (tracer.pallas.bwd): the whole
-    gradient step in one kernel must reproduce the XLA replay's
-    gradients (same tape, same gradient definition) on every leaf."""
+class TestChunkedGradients:
+    """tracer.opt.grads.l2_grads_deep: one forward frame for the loss, then
+    the VJP of each spp chunk's render on the fixed frame cotangent. The
+    chunk sums must equal jax.grad of the same loss up to f32 addition
+    order, for any chunking."""
 
-    def _cmp(self, g_k, g_r, atol_scale=1e-5):
-        for a, b in zip(jax.tree_util.tree_leaves(g_k),
-                        jax.tree_util.tree_leaves(g_r)):
+    def _cmp(self, got, want, rel=1e-5):
+        for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
             if jnp.issubdtype(a.dtype, jnp.floating):
                 an, bn = np.asarray(a), np.asarray(b)
-                tol = atol_scale * max(1.0, float(np.abs(bn).max()))
+                tol = rel * max(1.0, float(np.abs(bn).max()))
                 np.testing.assert_allclose(an, bn, atol=tol, rtol=1e-4)
-
-    def test_scene_grads_match_replay(self):
-        from tracer.pallas import diff as pdiff
-
-        scene = _scene()
-
-        def loss(scene, mode):
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                         mode=mode)
-            return jnp.sum(fb * fb) / (W * H * SPP)
-
-        g_k = jax.grad(lambda s: loss(s, "replay-kernel"), allow_int=True)(scene)
-        g_r = jax.grad(lambda s: loss(s, "replay"), allow_int=True)(scene)
-        self._cmp(g_k, g_r)
-
-    def test_camera_grads_match_replay(self):
-        from tracer.pallas import diff as pdiff
-
-        scene = _scene()
-
-        def loss(cam, mode):
-            fb = pdiff.render_frame_diff(scene, cam, W, H, SPP, DEPTH,
-                                         mode=mode)
-            return jnp.sum(fb * fb) / (W * H * SPP)
-
-        g_k = jax.grad(lambda c: loss(c, "replay-kernel"))(_cam())
-        g_r = jax.grad(lambda c: loss(c, "replay"))(_cam())
-        self._cmp(g_k, g_r)
-
-    def test_rr_grads_match_replay(self):
-        from tracer.pallas import diff as pdiff
-
-        scene = _scene()
-
-        def loss(scene, mode):
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                         mode=mode, rr_start=2)
-            return jnp.sum(fb * fb) / (W * H * SPP)
-
-        g_k = jax.grad(lambda s: loss(s, "replay-kernel"), allow_int=True)(scene)
-        g_r = jax.grad(lambda s: loss(s, "replay"), allow_int=True)(scene)
-        self._cmp(g_k, g_r)
-
-    def test_textured_grads_match_replay(self):
-        from tracer.pallas import diff as pdiff
-
-        scene = _scene()
-        g = np.random.default_rng(5)
-        tex = g.uniform(0.2, 1.0, size=(1, 40, 56, 3)).astype(np.float32)
-        mats = scene.materials
-        tex_id = np.asarray(mats.tex_id).copy()
-        tex_id[0] = 0
-        scene = scene._replace(
-            textures=jnp.asarray(tex),
-            materials=mats._replace(tex_id=jnp.asarray(tex_id)),
-        )
-
-        def loss(scene, mode, texture_grads=False):
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                         mode=mode,
-                                         texture_grads=texture_grads)
-            return jnp.mean(fb * fb)
-
-        g_k = jax.grad(lambda s: loss(s, "replay-kernel"), allow_int=True)(scene)
-        g_r = jax.grad(lambda s: loss(s, "replay"), allow_int=True)(scene)
-        g_s = jax.grad(lambda s: loss(s, "replay-sample"), allow_int=True)(scene)
-        # material gradients: all tape modes agree exactly
-        np.testing.assert_allclose(
-            np.asarray(g_k.materials.albedo), np.asarray(g_r.materials.albedo),
-            rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_k.materials.emit), np.asarray(g_r.materials.emit),
-            rtol=1e-4, atol=1e-6)
-        # geometry gradients (round 4): the kernel's 9-field tape
-        # linearizes the texel around the recorded hit, so it keeps the
-        # d(texel)/d(uv) term — it must match the SAMPLING replay (which
-        # has the term live), NOT the frozen 3-field XLA replay
-        np.testing.assert_allclose(
-            np.asarray(g_k.spheres.center), np.asarray(g_s.spheres.center),
-            rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_k.planes.base), np.asarray(g_s.planes.base),
-            rtol=1e-4, atol=1e-6)
-        # default (texture_grads=False): the tape freezes the texture
-        # IMAGE — its cotangent is identically zero in both tape modes
-        assert float(np.abs(np.asarray(g_k.textures)).max()) == 0.0
-        # opt-in texture_grads=True: the 13-field tape routes exact
-        # cotangents to the texture pixels — must match the remat oracle
-        # (the only other mode with texture-image gradients)
-        g_kt = jax.grad(
-            lambda s: loss(s, "replay-kernel", texture_grads=True),
-            allow_int=True)(scene)
-        g_rem = jax.grad(lambda s: loss(s, "remat"), allow_int=True)(scene)
-        assert float(np.abs(np.asarray(g_rem.textures)).max()) > 0.0
-        np.testing.assert_allclose(
-            np.asarray(g_kt.textures), np.asarray(g_rem.textures),
-            rtol=1e-4, atol=1e-7)
-
-    def test_textured_grads_big_texture_demand_paged(self):
-        """The same d(texel)/d(uv)-exact geometry gradients through the
-        HBM demand-paged texture path (want_grad=True in
-        _tex_demand_fetch: the fused weight-folded selectors also
-        accumulate the dT/dpx / dT/dpy rows)."""
-        from tracer.pallas import diff as pdiff
-        from tracer.pallas import megakernel
-
-        scene = _scene()
-        g = np.random.default_rng(9)
-        big = megakernel.MAX_TEX_DIM
-        tex = g.uniform(0.2, 1.0, size=(1, big + 20, big + 60, 3)).astype(
-            np.float32)
-        mats = scene.materials
-        tex_id = np.asarray(mats.tex_id).copy()
-        tex_id[0] = 0
-        scene = scene._replace(
-            textures=jnp.asarray(tex),
-            materials=mats._replace(tex_id=jnp.asarray(tex_id)),
-        )
-
-        def loss(scene, mode):
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, 1, 3,
-                                         mode=mode)
-            return jnp.mean(fb * fb)
-
-        g_k = jax.grad(lambda s: loss(s, "replay-kernel"), allow_int=True)(scene)
-        g_s = jax.grad(lambda s: loss(s, "replay-sample"), allow_int=True)(scene)
-        np.testing.assert_allclose(
-            np.asarray(g_k.spheres.center), np.asarray(g_s.spheres.center),
-            rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(g_k.materials.albedo), np.asarray(g_s.materials.albedo),
-            rtol=1e-4, atol=1e-6)
-
-    def test_kernel_forward_replay_matches_record(self):
-        """The kernel's in-flight forward replay (a free output) must
-        reproduce the recorded framebuffer — same joins, same _shade."""
-        from tracer.pallas import bwd, megakernel
-
-        scene = _scene()
-        fb, idx = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, SPP, DEPTH, interpret=True
-        )
-        gz = jnp.zeros((H, W, 3), jnp.float32)
-        _, _, fb_re = bwd.scene_cam_grads(
-            scene, _cam(), idx, gz, W, H, SPP, DEPTH, interpret=True
-        )
-        np.testing.assert_allclose(np.asarray(fb_re), np.asarray(fb),
-                                   atol=1e-5)
-
-    def test_kernel_grads_finite_differences(self):
-        """FD pin directly on the fused-kernel gradients (sphere z and
-        albedo — the same probes TestSceneGradients uses)."""
-        from tracer.pallas import diff as pdiff
-
-        def loss_at(cz):
-            scene = _scene(center_z=cz)
-            fb = pdiff.render_frame_diff(scene, _cam(), W, H, SPP, DEPTH,
-                                         mode="replay-kernel")
-            return jnp.sum(fb * fb) / (W * H * SPP)
-
-        g = jax.grad(loss_at)(jnp.float32(1.0))
-        eps = 1e-3
-        fd = (loss_at(jnp.float32(1.0 + eps)) - loss_at(jnp.float32(1.0 - eps))) / (2 * eps)
-        np.testing.assert_allclose(float(g), float(fd), rtol=2e-2)
-
-
-def test_tex_scatter_kernel_matches_xla_scatter():
-    """The MXU block-accumulation scatter (tracer.pallas.tex_scatter)
-    must reproduce bwd.texture_image_grads (the XLA .at[].add oracle)
-    on random addressing, including wrap corners (x0=tw-1, y0=th-1) and
-    zero-cotangent (untextured) rows — up to f32 addition order."""
-    from tracer.pallas import bwd, tex_scatter
-
-    rng = np.random.default_rng(0)
-    spp, depth = 2, 3
-    R = spp * depth
-    P = 3 * 128
-    th, tw = 40, 200  # forces row/col padding in the blocked layout
-    g = rng.normal(size=(3 * R, P)).astype(np.float32)
-    live = rng.random((R, P)) < 0.5
-    g = g * np.repeat(live[None], 3, axis=0).reshape(3 * R, P)
-    t2 = np.ones((13 * R, P), np.float32)
-    t2[9 * R:10 * R] = rng.integers(0, tw, size=(R, P))
-    t2[10 * R:11 * R] = rng.integers(0, th, size=(R, P))
-    t2[11 * R:12 * R] = rng.random((R, P))
-    t2[12 * R:13 * R] = rng.random((R, P))
-
-    ref = np.asarray(bwd.texture_image_grads(
-        jnp.asarray(g), jnp.asarray(t2), spp, depth, th, tw))
-    got = np.asarray(tex_scatter.texture_image_grads_kernel(
-        jnp.asarray(g), jnp.asarray(t2), spp, depth, th, tw,
-        interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-
-
-class TestChunkedGradients:
-    """spp-chunked kernel backward (round 3, VERDICT item 4): tape memory
-    bounded by spp_chunk makes the reference's real max_depth=50
-    differentiable (config.txt:16). Chunk sums must equal the one-shot
-    full-tape gradients up to f32 addition order."""
 
     def test_chunked_matches_full_tape(self):
-        from tracer.pallas import bwd, megakernel
+        """Two chunks of 2 spp against jax.grad of the one-shot render."""
+        from tracer.opt import grads
 
-        scene = _scene()
-        spp = 4
+        scene, spp = _scene(), 4
         g = np.random.default_rng(7)
-        g_fb = jnp.asarray(g.normal(size=(H, W, 3)).astype(np.float32))
+        target = g.uniform(0, 1, size=(H, W, 3)).astype(np.float32)
 
-        _, idx = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, spp, DEPTH, interpret=True)
-        gs_full, gc_full, _ = bwd.scene_cam_grads(
-            scene, _cam(), idx, g_fb, W, H, spp, DEPTH, interpret=True)
+        def loss(scene, cam):
+            fb = renderer.render_frame(scene, cam, W, H, spp=spp, max_depth=DEPTH)
+            return jnp.mean((fb / spp - target) ** 2)
 
-        gs_ch, gc_ch = bwd.scene_grads_chunked(
-            scene, _cam(), g_fb, W, H, spp, DEPTH, spp_chunk=2,
-            interpret=True)
-
-        for a, b in zip(jax.tree_util.tree_leaves(gs_ch) + jax.tree_util.tree_leaves(gc_ch),
-                        jax.tree_util.tree_leaves(gs_full) + jax.tree_util.tree_leaves(gc_full)):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                an, bn = np.asarray(a), np.asarray(b)
-                tol = 1e-5 * max(1.0, float(np.abs(bn).max()))
-                np.testing.assert_allclose(an, bn, atol=tol, rtol=1e-4)
-
-    def test_bucketed_matches_full_tape(self):
-        """Depth-bucketed backward (round 4): tiles gather into static-
-        depth buckets, skipping each tile's provably-dead tail slots
-        (beyond the first all-(-1) tape row every lane is dead, so the
-        skipped vjps are identity on the radiance cotangent and zero on
-        the tables). Must equal the full-depth kernel up to f32
-        addition order. Exercises the scalar-prefetched tile-base path
-        (gathered tiles keep pixel-exact seeds) and the pad tiles."""
-        from tracer.pallas import bwd, megakernel
-
-        scene = _scene()
-        spp, depth = 1, 6  # deep enough that tiles bucket differently
-        g = np.random.default_rng(3)
-        g_fb = jnp.asarray(g.normal(size=(H, W, 3)).astype(np.float32))
-        _, idx = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, spp, depth, interpret=True)
-        gs_full, gc_full, _ = bwd.scene_cam_grads(
-            scene, _cam(), idx, g_fb, W, H, spp, depth, interpret=True)
-        gs_b, gc_b = bwd.scene_grads_bucketed(
-            scene, _cam(), idx, g_fb, W, H, spp, depth, interpret=True,
-            buckets=(2, 4, 6))
-        for a, b in zip(jax.tree_util.tree_leaves(gs_b) + jax.tree_util.tree_leaves(gc_b),
-                        jax.tree_util.tree_leaves(gs_full) + jax.tree_util.tree_leaves(gc_full)):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                an, bn = np.asarray(a), np.asarray(b)
-                tol = 1e-5 * max(1.0, float(np.abs(bn).max()))
-                np.testing.assert_allclose(an, bn, atol=tol, rtol=1e-4)
-
-    def test_segmented_backward_matches_unsegmented(self):
-        """Depth-segment checkpointing (the VMEM fix that makes d50
-        compile: the unrolled vjp residual chain is ~430 KB/bounce, d50
-        overflowed the 16 MB scoped limit) recomputes mathematically
-        identical ops — seg_size=2 (3 segments at depth 6) vs one
-        segment agrees to compiler-reassociation ulps (measured max
-        2.8e-9 abs / 5.5e-6 rel on CPU: the different unroll structure
-        fuses differently)."""
-        from tracer.pallas import bwd, megakernel
-
-        scene = _scene()
-        spp, depth = 2, 6
-        g = np.random.default_rng(7)
-        g_fb = jnp.asarray(g.normal(size=(H, W, 3)).astype(np.float32))
-        _, idx = megakernel.render_frame_pallas_record(
-            scene, _cam(), W, H, spp, depth, interpret=True)
-        out = {}
-        for seg in (2, 8):
-            out[seg] = bwd.scene_cam_grads(
-                scene, _cam(), idx, g_fb, W, H, spp, depth,
-                interpret=True, seg_size=seg)
-        for a, b in zip(jax.tree_util.tree_leaves(out[2]),
-                        jax.tree_util.tree_leaves(out[8])):
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                an, bn = np.asarray(a), np.asarray(b)
-                tol = 1e-6 * max(1.0, float(np.abs(bn).max()))
-                np.testing.assert_allclose(an, bn, atol=tol, rtol=1e-5)
+        l_full, (gs_full, gc_full) = jax.value_and_grad(
+            loss, argnums=(0, 1), allow_int=True)(scene, _cam())
+        l_ch, gs_ch, gc_ch = grads.l2_grads_deep(
+            scene, _cam(), target, W, H, spp, DEPTH, spp_chunk=2)
+        np.testing.assert_allclose(float(l_ch), float(l_full), rtol=1e-6)
+        self._cmp((gs_ch, gc_ch), (gs_full, gc_full))
 
     def test_l2_grads_deep_multi_segment(self):
-        """Deep-depth differentiability: depth 10 = 2 backward segments
-        (seg_size 8, uneven 8+2 tail) + the chunked driver, the same
-        code path as the reference's max_depth=50 (config.txt:16).
-        Depth 50 itself is validated ON HARDWARE (2026-08-19: 256x192
-        spp8, 800x600 spp32 and 1080x720 spp64 d50 chunked grad steps
-        all finite on v5e) — interpret-mode XLA-CPU compile scales
-        superlinearly in the unrolled bounce bodies (depth 20 measured
-        >60 min of suite time on a 4-core box; depth 10 covers the
-        multi-segment + tail logic at a fraction of that)."""
-        from tracer.pallas import bwd
+        """Depth 10 with one-sample chunks: finite loss, finite and
+        nonzero gradients on scene and camera (the reference's real
+        max_depth=50 runs on the GPU in chip_smoke.py)."""
+        from tracer.opt import grads
 
         scene = _scene()
-        spp, depth = 1, 10
+        spp, depth = 2, 10
         target = np.zeros((H, W, 3), np.float32)
 
-        loss, gs, gc = bwd.l2_grads_deep(
-            scene, _cam(), target, W, H, spp, depth, spp_chunk=1,
-            interpret=True)
+        loss, gs, gc = grads.l2_grads_deep(
+            scene, _cam(), target, W, H, spp, depth, spp_chunk=1)
         assert np.isfinite(float(loss))
         leaves = [np.asarray(x) for x in
                   jax.tree_util.tree_leaves(gs) + jax.tree_util.tree_leaves(gc)
                   if jnp.issubdtype(x.dtype, jnp.floating)]
         assert all(np.isfinite(a).all() for a in leaves)
         assert any(np.abs(a).max() > 0 for a in leaves)
+
+    @pytest.mark.parametrize("variant", ["plain", "textured", "rr"])
+    @pytest.mark.parametrize("spp_chunk", [1, 2, 4])
+    def test_chunked_matches_unchunked(self, spp_chunk, variant):
+        from tracer.opt import grads
+
+        scene = _textured(_scene()) if variant == "textured" else _scene()
+        rr = 1 if variant == "rr" else None
+        spp = 4
+        target = np.full((H, W, 3), 0.2, np.float32)
+        l_one, gs_one, gc_one = grads.l2_grads_deep(
+            scene, _cam(), target, W, H, spp, DEPTH, rr_start=rr)
+        l_ch, gs_ch, gc_ch = grads.l2_grads_deep(
+            scene, _cam(), target, W, H, spp, DEPTH, spp_chunk=spp_chunk,
+            rr_start=rr)
+        np.testing.assert_allclose(float(l_ch), float(l_one), rtol=1e-6)
+        self._cmp((gs_ch, gc_ch), (gs_one, gc_one))
+        if variant == "textured":
+            assert float(np.abs(np.asarray(gs_ch.textures)).max()) > 0.0
+
+    def test_spp_chunk_must_divide_spp(self):
+        from tracer.opt import grads
+
+        with pytest.raises(ValueError, match="multiple"):
+            grads.l2_grads_deep(_scene(), _cam(), np.zeros((H, W, 3), np.float32),
+                                W, H, 4, 2, spp_chunk=3)

@@ -1,9 +1,12 @@
-"""The MXU-formulated fast intersector must agree with the reference port."""
+"""The matmul-formulated fast intersector must agree with the reference port."""
 
 import io
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
+
+import render_modes
 
 from tracer.render import hit as hm
 from tracer.render import hit_fast
@@ -71,3 +74,12 @@ def test_early_exit_matches_scan():
         renderer.render_frame(scene, cam, 16, 12, spp=2, max_depth=6, chunk=192, early_exit=True)
     )
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", sorted(render_modes.MODES))
+def test_fast_matches_brute_in_every_mode(mode):
+    """`fast` against the `brute` reference port, frame for frame, in every
+    render mode (see render_modes.MODES)."""
+    render_modes.assert_frames_agree(
+        render_modes.render(mode, "fast"), render_modes.render(mode, "brute"),
+        share=0.995, mean_rtol=1e-3)

@@ -3,6 +3,7 @@
 import io
 
 import numpy as np
+import pytest
 
 from tracer.io import image as img
 from tracer.io import texture as tex
@@ -81,9 +82,15 @@ class TestTextureLoad:
     def test_missing_file(self):
         assert tex.load_texture("/no/such/file.png") is None
 
-    def test_reference_floor_jpg(self):
-        t = tex.load_texture("/root/reference/floor.jpg")
-        assert t is not None and t.ndim == 3 and t.shape[2] == 3
+    def test_reference_floor_jpg(self, tmp_path):
+        """A JPEG floor texture (the reference ships floor.jpg) decodes."""
+        Image = pytest.importorskip("PIL.Image")
+        data = np.random.default_rng(4).integers(0, 256, (13, 20, 3), np.uint8)
+        path = str(tmp_path / "floor.jpg")
+        Image.fromarray(data).save(path, format="JPEG")
+        t = tex.load_texture(path)
+        assert t is not None and t.shape == (13, 20, 3) and t.dtype == np.float32
+        assert 0.0 <= t.min() and t.max() <= 1.0
 
 
 class TestSaverSppQuirk:
@@ -235,3 +242,83 @@ class TestThreadedWriter:
             w.close()
         w._thread.join(timeout=5)
         assert not w._thread.is_alive()
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """Minimal decoder for the 8-bit RGB, filter-0 PNGs encode_png writes
+    (no PIL): checks every chunk's CRC."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF, tag
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    assert tag == b"IEND"
+    w, h, depth, color_type, _, _, interlace = ihdr
+    assert (depth, color_type, interlace) == (8, 2, 0)
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert (raw[:, 0] == 0).all()  # filter type None on every scanline
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 7), (48, 64)])
+def test_png_roundtrip_without_pil(tmp_path, shape):
+    fb = np.random.default_rng(1).uniform(0, 1.2, size=shape + (3,)).astype(np.float32)
+    path = str(tmp_path / "f.png")
+    img.write_png(path, fb, 1)
+    with open(path, "rb") as f:
+        back = _decode_png(f.read())
+    np.testing.assert_array_equal(back, img.quantize(fb, 1))
+
+
+def _write_ppm(path, kind, data):
+    h, w, _ = data.shape
+    if kind == "p3_comments":
+        body = " ".join(str(int(v)) for v in data.reshape(-1))
+        text = f"P3\n# made by a test\n{w} {h}\n# max\n255\n{body}\n"
+        with open(path, "w") as f:
+            f.write(text)
+    elif kind == "p6_16bit":
+        with open(path, "wb") as f:
+            f.write(f"P6\n{w} {h}\n65535\n".encode())
+            f.write(data.astype(">u2").tobytes())
+    else:
+        img.write_ppm_binary(path, data)
+
+
+@pytest.mark.parametrize("kind", ["p6_8bit", "p6_16bit", "p3_comments", "p6_reference_size"])
+def test_ppm_texture_loads_without_pil(tmp_path, monkeypatch, kind):
+    """PPM textures decode with numpy alone (stbi_loadf gamma applied)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "PIL", None)  # any `import PIL` fails
+    g = np.random.default_rng(6)
+    shape = (1330, 2000, 3) if kind == "p6_reference_size" else (5, 9, 3)
+    maxval = 65535 if kind == "p6_16bit" else 255
+    data = g.integers(0, maxval + 1, shape).astype(np.uint16 if maxval > 255 else np.uint8)
+    path = str(tmp_path / "t.ppm")
+    _write_ppm(path, kind, data)
+    t = tex.load_texture(path)
+    assert t is not None and t.shape == shape and t.dtype == np.float32
+    np.testing.assert_allclose(t, (data / maxval) ** 2.2, rtol=1e-5, atol=1e-7)
+
+
+def test_png_texture_without_pil_fails_clearly(tmp_path, monkeypatch):
+    import sys
+
+    path = str(tmp_path / "t.png")
+    img.write_png(path, np.ones((2, 2, 3), np.float32), 4)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="Pillow"):
+        tex.load_texture(path)
+    # a missing file still degrades to untextured, PIL or not
+    assert tex.load_texture(str(tmp_path / "missing.jpg")) is None

@@ -82,25 +82,11 @@ class TestFit:
         )
 
 
-class TestFitPallasEngine:
-    def test_pallas_replay_fit_converges(self):
-        """fit(engine='pallas') now runs the record+replay VJP: the loss
-        must descend just like the XLA engine's."""
-        true_scene = _scene(albedo0=(0.2, 0.8, 0.4))
-        target = _target(true_scene)
-        init = _scene(albedo0=(0.5, 0.5, 0.5))
-        _, losses = fit_mod.fit(
-            init, _cam(), target, W, H, steps=8,
-            param_paths=("materials.albedo",), learning_rate=3e-2,
-            log_every=0, spp=SPP, max_depth=DEPTH, engine="pallas",
-        )
-        assert losses[-1] < losses[0] * 0.5, losses
-
-
 class TestTexturedFit:
     def test_textured_albedo_recovers_pallas(self):
-        """Inverse rendering on a TEXTURED scene through the pallas
-        record+replay engine (texture-multiplier tape)."""
+        """Inverse rendering on a TEXTURED scene: the albedo fit
+        converges with the texture sampled inside the differentiated
+        render."""
         import numpy as np
 
         import jax.numpy as jnp
@@ -120,24 +106,21 @@ class TestTexturedFit:
                                    [[0, 24, 0]], [0])
             return T.Scene(spheres, planes, mats, tex, None)
 
-        import jax as _jax
-
         # big enough that the sphere subtends real pixels — tiny frames
         # leave the loss noise-dominated
         fw, fh = 64, 48
         cam = C.build_camera_data([9, -9, 5], [0, 0, 1.2], fw, fh, 55.0,
                                   background=(0.05, 0.05, 0.1))
-        from tracer.pallas import megakernel
+        from tracer.render import renderer
 
         true_scene = make([0.2, 0.7, 0.4])
-        fb = megakernel.render_frame_pallas(true_scene, cam, fw, fh, 2, 4,
-                                            interpret=True)
+        fb = renderer.render_frame(true_scene, cam, fw, fh, 2, 4)
         target = np.asarray(fb) / 2
         init = make([0.6, 0.3, 0.6])
         _, losses = fit_mod.fit(
             init, cam, target, fw, fh, spp=2, max_depth=4,
             param_paths=("materials.albedo",), steps=8, learning_rate=3e-2,
-            engine="pallas", log_every=0)
+            log_every=0)
         assert losses[-1] < losses[0] * 0.8, (losses[0], losses[-1])
 
 

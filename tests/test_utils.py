@@ -57,27 +57,6 @@ class TestMultihost:
         multihost.initialize(num_processes=1, process_id=0)
 
 
-class TestDriverPallasEngine:
-    def test_cli_pallas_render(self, tmp_path):
-        import io
-
-        from tracer.render import driver
-        from tracer.scene import builders, config
-
-        params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
-        params.width, params.height = 20, 10
-        params.num_frames = 1
-        params.render.sqrt_rays_per_pixel = 1
-        params.render.max_depth = 3
-        params.output_path = str(tmp_path / "f_%d.bin")
-        scene = builders.create_scene(params, texture_loader=lambda _: None)
-        out = io.StringIO()
-        fb_p = driver.render_animation(scene, params, engine="pallas", out=out)
-        fb_x = driver.render_animation(scene, params, engine="xla", out=out)
-        np.testing.assert_allclose(fb_p, fb_x, atol=1e-4)
-        assert "\t" in out.getvalue()
-
-
 class TestResilience:
     def test_retries_transient_then_succeeds(self):
         from tracer.utils import resilience
@@ -87,7 +66,7 @@ class TestResilience:
         def flaky():
             calls.append(1)
             if len(calls) < 3:
-                raise RuntimeError("UNAVAILABLE: TPU worker process crashed")
+                raise RuntimeError("UNAVAILABLE: worker process crashed")
             return 42
 
         out = resilience.retry_transient(flaky, retries=3, backoff_s=0.0)
@@ -151,49 +130,3 @@ class TestResilience:
         assert state["n"] == 2
         assert "transient backend failure" in err.getvalue()
         assert np.isfinite(np.asarray(fb)).all()
-
-
-class TestBenchFailsoft:
-    """bench.py must print a parseable metric line even when the child
-    dies before producing one (the round-2 capture was lost to a
-    backend-init UNAVAILABLE that hit the only un-handled path)."""
-
-    def _run_bench(self, extra_env):
-        import json
-        import os
-        import subprocess
-        import sys
-
-        env = dict(
-            os.environ,
-            TRACER_BENCH_RETRIES="2",
-            TRACER_BENCH_BACKOFF="0",
-            TRACER_BENCH_TIMEOUT="120",
-            **extra_env,
-        )
-        bench = os.path.join(os.path.dirname(__file__), "..", "bench.py")
-        r = subprocess.run(
-            [sys.executable, os.path.abspath(bench)],
-            env=env, capture_output=True, text=True, timeout=180,
-        )
-        lines = [l for l in r.stdout.splitlines() if l.strip().startswith("{")]
-        assert lines, f"no JSON line in stdout; stderr tail: {r.stderr[-800:]}"
-        return r, [json.loads(l) for l in lines]
-
-    def test_child_death_pre_metric_still_prints_json(self):
-        # Non-transient fault: child dies immediately, no retries, but the
-        # parent must still print a parseable fail-soft headline line.
-        r, recs = self._run_bench({"TRACER_BENCH_FAULT": "boom"})
-        assert r.returncode == 1
-        assert recs[0]["metric"] == "fwd_mrays_per_s"
-        assert recs[0]["value"] == 0.0
-        assert "error" in recs[0]
-
-    def test_transient_child_death_is_retried(self):
-        # UNAVAILABLE is a transient marker: the parent should retry the
-        # child (attempt messages on stderr) before failing soft.
-        r, recs = self._run_bench({"TRACER_BENCH_FAULT": "UNAVAILABLE"})
-        assert r.returncode == 1
-        assert "transient" in r.stderr
-        assert recs[0]["value"] == 0.0
-        assert "retries exhausted" in recs[0]["error"]

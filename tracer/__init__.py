@@ -1,13 +1,12 @@
-"""tracer — a TPU-native differentiable path-tracing framework.
+"""tracer — a differentiable path tracer in JAX, run on an NVIDIA GPU.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A brand-new JAX/XLA implementation of the capabilities of the
 reference CUDA path tracer (zloyaloha/ray-tracing-practice), redesigned
-TPU-first:
+as array programs:
 
 - arrays-of-structs -> structs-of-arrays pytrees,
 - per-thread branches -> masked vector lanes,
-- the CUDA megakernel -> a jitted wavefront integrator with Pallas
-  inner kernels,
+- the CUDA megakernel -> a jitted wavefront integrator that XLA compiles,
 - and (beyond the reference) a fully differentiable scene: pixel losses
   backpropagate to sphere centers/radii, material albedo/fuzz/IOR/
   absorption/emission, and camera parameters.
@@ -21,9 +20,8 @@ Layer map (mirrors SURVEY.md section 1 of the reference):
   render/    L6 camera + integrator
   io/        L7 image savers + texture loading
   cli.py     L8 driver
-  pallas/    TPU kernels
   dist/      mesh + sharding (new capability; reference is single-GPU)
-  opt/       inverse-rendering fit loop
+  opt/       inverse-rendering fit loop + chunked L2 gradients
   utils/     profiling + debug guards
 """
 

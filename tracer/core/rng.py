@@ -4,7 +4,7 @@ The reference (include/random_utils.h) threads a single mutable
 `unsigned int seed` through every sample: `random_float` hashes the seed
 in place, and `random_in_unit_sphere` draws in a *rejection loop* of
 unbounded length. An unbounded, data-dependent loop cannot map onto a
-vector machine, so the TPU-native design replaces rejection sampling
+vector machine, so the batched design replaces rejection sampling
 with *exact analytic* samplers that consume a fixed number of hash
 advances per call while producing the identical probability
 distributions:

@@ -1,7 +1,7 @@
 """L0 vector math on `[..., 3]` arrays.
 
 The reference models 3-vectors as a CUDA `vec3` struct with overloaded
-operators (include/vec3.h). The TPU-native shape convention is simply a
+operators (include/vec3.h). The array shape convention is simply a
 trailing axis of size 3 on `jnp` arrays, so every op here is batched and
 fusable by XLA; there is no vec3 class.
 
@@ -27,7 +27,7 @@ def length_squared(v: jnp.ndarray) -> jnp.ndarray:
 
 
 @jax.custom_jvp
-def _sqrt_grad_safe(x):
+def sqrt_grad_safe(x):
     """sqrt with a bounded derivative at 0.
 
     Forward is bit-identical to jnp.sqrt. The true derivative diverges at
@@ -41,7 +41,7 @@ def _sqrt_grad_safe(x):
     return jnp.sqrt(x)
 
 
-@_sqrt_grad_safe.defjvp
+@sqrt_grad_safe.defjvp
 def _sqrt_grad_safe_jvp(primals, tangents):
     (x,), (dx,) = primals, tangents
     y = jnp.sqrt(x)
@@ -51,7 +51,7 @@ def _sqrt_grad_safe_jvp(primals, tangents):
 def length(v: jnp.ndarray) -> jnp.ndarray:
     """reference: include/vec3.h:55 (len); gradient bounded at |v| = 0
     (dead/masked lanes would otherwise poison gradients via 0 * inf)."""
-    return _sqrt_grad_safe(length_squared(v))
+    return sqrt_grad_safe(length_squared(v))
 
 
 def cross(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
@@ -95,6 +95,6 @@ def refract(uv: jnp.ndarray, n: jnp.ndarray, etai_over_etat: jnp.ndarray) -> jnp
     eta = jnp.asarray(etai_over_etat)[..., None]
     r_out_perp = eta * (uv + cos_theta[..., None] * n)
     r_out_parallel = (
-        -_sqrt_grad_safe(jnp.abs(1.0 - length_squared(r_out_perp)))[..., None] * n
+        -sqrt_grad_safe(jnp.abs(1.0 - length_squared(r_out_perp)))[..., None] * n
     )
     return r_out_perp + r_out_parallel

@@ -1,14 +1,14 @@
-"""Multi-host orchestration: pod-slice initialization and frame/tile work
+"""Multi-host orchestration: cluster initialization and frame/tile work
 splitting.
 
 The reference is a one-GPU, one-process renderer; its scaling axes
 (image size x spp) all live inside one kernel launch (SURVEY.md §2).
-The TPU-native multi-host design has two independent levers:
+The multi-host design has two independent levers:
 
 - TILE sharding (within a frame): the global mesh spans every device of
   every host; `sharding.render_frame_sharded` partitions the pixel axis
-  and XLA routes any collective over ICI within a slice / DCN across
-  hosts. Used when a single frame must go fast.
+  and XLA routes any collective over NVLink within a host and the
+  network across hosts. Used when a single frame must go fast.
 - FRAME sharding (across frames): frames are embarrassingly parallel
   (independent output files, camera.cu:297-300), so hosts round-robin
   whole frames with zero communication, each tile-sharding its frames
@@ -33,8 +33,8 @@ def initialize(
 ) -> None:
     """jax.distributed.initialize with env-var fallbacks.
 
-    On Cloud TPU pods the arguments are auto-detected; elsewhere set
-    COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or pass explicitly.
+    Set COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or pass the
+    arguments explicitly.
     Safe to call in single-process runs (no-op on failure to detect).
     """
     coordinator_address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")

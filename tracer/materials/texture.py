@@ -6,7 +6,7 @@ wrap with modulo, bilinear blend. The CUDA HW sampler (main.cu:41) is only
 approximately equal to this (9-bit fractional weights); per SURVEY.md §7
 hard part (f) the CPU sampler defines parity.
 
-The TPU-native form is a vectorized gather over a `[T, H, W, 3]` texture
+The batched form is a vectorized gather over a `[T, H, W, 3]` texture
 stack; `tex_id` selects the layer.
 """
 

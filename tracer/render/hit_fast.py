@@ -1,20 +1,21 @@
-"""MXU-formulated brute-force intersection (the TPU fast path).
+"""Matmul-formulated brute-force intersection (the default intersector).
 
 Mathematically identical to tracer.render.hit.hit_scene_brute, but
-restructured for the hardware (SURVEY.md §7 stage 5 groundwork):
+restructured as dense array work (SURVEY.md §7 stage 5 groundwork):
 
 - All (ray x primitive) 3-vector contractions become TWO matmuls:
   project o and d once against a stacked [3, S+3P] matrix of sphere
   centers, plane normals and the two precomputed triple-product vectors
   A = cross(v, w), B = cross(w, u) (alpha = (p-base)//A, beta =
   (p-base)//B — scalar triple product identity applied to plane.h:66-68).
-  The MXU eats the contraction; the VPU keeps only ~12 elementwise
-  [R, N] ops (roots, discriminant, interior masks).
+  What remains is ~12 elementwise [R, N] ops (roots, discriminant,
+  interior masks), which XLA fuses.
 
 - The winner's HitRecord is joined with ONE one-hot matmul
   [R, N] @ [N, K] against a per-primitive constant table (geometry +
-  pre-joined material fields) instead of N-indexed gathers — gathers
-  lower poorly on TPU; one-hot matmuls are effectively free on the MXU.
+  pre-joined material fields) instead of N-indexed gathers. This is
+  O(R x N x K) work where a gather of the winner's row would be O(R x K);
+  it stays because it is the measured baseline (PERF.md).
 
 All precomputed tables are built with jnp ops from the Scene pytree
 inside the traced function: they are loop-invariant across the depth
@@ -99,10 +100,10 @@ def hit_scene_fast(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) ->
         mats.extend([pla.normal, a_vec, b_vec])
     proj_mat = jnp.concatenate(mats, axis=0)  # [S + 3P, 3]
 
-    # ---- the two projection matmuls (MXU) -----------------------------
-    # HIGHEST precision: TPU's default matmul rounds f32 operands to
-    # bfloat16, which would shift intersection roots by ~1e-2 and flip
-    # silhouette hits vs the brute/oracle path.
+    # ---- the two projection matmuls ----------------------------------
+    # HIGHEST precision: a GPU's default f32 matmul may run in TF32 (10
+    # mantissa bits), which would shift intersection roots by ~1e-3
+    # relative and flip silhouette hits vs the brute/oracle path.
     hp = jax.lax.Precision.HIGHEST
     proj_o = jnp.matmul(origin, proj_mat.T, precision=hp)  # [R, S+3P]
     proj_d = jnp.matmul(direction, proj_mat.T, precision=hp)
@@ -120,7 +121,7 @@ def hit_scene_fast(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) ->
         c_term = oo - 2.0 * co + cc_rr
         disc = half_b * half_b - a * c_term
         s_hit = disc >= 0.0
-        sqrt_d = jnp.sqrt(jnp.where(s_hit, disc, 1.0))  # NaN-safe (see geometry.sphere)
+        sqrt_d = vec.sqrt_grad_safe(jnp.where(s_hit, disc, 1.0))  # NaN-safe (see geometry.sphere)
         inv_a = 1.0 / a
         t_near = (-half_b - sqrt_d) * inv_a
         t_far = (-half_b + sqrt_d) * inv_a
@@ -151,7 +152,7 @@ def hit_scene_fast(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) ->
 
     t_all = jnp.concatenate(t_parts, axis=1) if len(t_parts) > 1 else t_parts[0]
 
-    # ---- winner + one-hot join (MXU) ----------------------------------
+    # ---- winner + one-hot join -----------------------------------------
     t_best = jnp.min(t_all, axis=1)
     hit = t_best < K_INFINITY
     winner = jnp.argmin(t_all, axis=1)
@@ -190,7 +191,7 @@ def hit_scene_fast(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) ->
         [jnp.concatenate(geo_cols, axis=0), _material_table(scene, prim_mat_idx)], axis=1
     )  # [N, 8 + 13]
 
-    rec = jnp.matmul(onehot, join, precision=hp)  # [R, 21]  (MXU)
+    rec = jnp.matmul(onehot, join, precision=hp)  # [R, 21]
 
     center = rec[:, 0:3]
     radius = rec[:, 3]

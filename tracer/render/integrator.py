@@ -8,8 +8,8 @@ scatter. Early exits become an `alive` mask carried through the scan
 frozen, which is the branchless price a vector machine pays.
 
 Three interchangeable intersectors (all produce identical radiance):
-  "fast"  - MXU-formulated brute force with one-hot material join
-            (tracer.render.hit_fast) — the TPU default.
+  "fast"  - matmul-formulated brute force with one-hot material join
+            (tracer.render.hit_fast) — the default.
   "brute" - direct vectorized port (tracer.render.hit) — the readable
             reference implementation the oracle tests pin down.
   "bvh"   - batched BVH traversal (tracer.bvh.traverse) for large scenes.
@@ -35,7 +35,7 @@ from tracer.render import hit_fast
 from tracer.scene.types import Scene
 
 INTERSECTORS = ("fast", "brute", "bvh")
-RR_MIN_P = 0.05  # Russian-roulette survival floor (== megakernel.RR_MIN_P)
+RR_MIN_P = 0.05  # Russian-roulette survival floor
 
 
 def _joined_hit(scene: Scene, origin, direction, intersector: str):
@@ -73,13 +73,10 @@ def _joined_hit(scene: Scene, origin, direction, intersector: str):
 
 
 def _bounce(scene: Scene, background, carry, intersector: str, rng_mode: str = "fixed",
-            joined_hit_fn=None, rr_start=None, depth=None, tex_mult=None):
+            rr_start=None, depth=None):
     origin, direction, beta, final, seed, alive = carry
 
-    # joined_hit_fn lets callers swap the O(prims) search for a recorded
-    # winner gather (tracer.pallas.replay) — everything downstream of the
-    # hit is shared
-    rec = (joined_hit_fn or _joined_hit)(scene, origin, direction, intersector)
+    rec = _joined_hit(scene, origin, direction, intersector)
 
     # Miss: final += beta * background, path dies (camera.cu:226-229).
     miss = alive & ~rec.hit
@@ -88,26 +85,8 @@ def _bounce(scene: Scene, background, carry, intersector: str, rng_mode: str = "
     active = alive & rec.hit
 
     # Texture-modulated albedo (camera.cu:233-236 / :269-271).
-    # tex_mult ([R, F>=3]) short-circuits the sampler with a RECORDED
-    # multiplier (tracer.pallas.replay's tape) — per-ray texture gathers
-    # and their scatter-add transposes are glacial on TPU. With F >= 9
-    # the tape also carries d(texel)/d(u,v) and the texel is LINEARIZED
-    # around the recorded hit: texel = tm + du*(u - sg u) + dv*(v - sg v)
-    # — primal unchanged (the added term is exactly 0), but reverse mode
-    # now pulls the EXACT bilinear uv-derivative, so geometry gradients
-    # on textured surfaces no longer lose the d(texel)/d(uv) term that
-    # the frozen-texel tape dropped (round-2 documented approximation).
     albedo = rec.albedo
-    if tex_mult is not None:
-        tm = tex_mult[..., 0:3]
-        if tex_mult.shape[-1] >= 9:
-            du, dv = tex_mult[..., 3:6], tex_mult[..., 6:9]
-            u = rec.u[..., None]
-            v = rec.v[..., None]
-            tm = (tm + du * (u - jax.lax.stop_gradient(u))
-                  + dv * (v - jax.lax.stop_gradient(v)))
-        albedo = jnp.where((rec.tex_id >= 0)[..., None], albedo * tm, albedo)
-    elif scene.textures is not None:
+    if scene.textures is not None:
         tex_rgb = texture_mod.sample_bilinear(scene.textures, rec.tex_id, rec.u, rec.v)
         albedo = jnp.where((rec.tex_id >= 0)[..., None], albedo * tex_rgb, albedo)
 
@@ -133,9 +112,8 @@ def _bounce(scene: Scene, background, carry, intersector: str, rng_mode: str = "
         # Opt-in throughput Russian roulette from bounce index rr_start
         # on (generalizes the reference's dielectric-only roulette,
         # materials.h:123-125): kill with probability 1 - max(beta),
-        # rescale survivors by 1/p — unbiased, and stream-identical to
-        # the megakernel's rr_start (one extra draw per bounce, every
-        # lane, after the scatter budget).
+        # rescale survivors by 1/p — unbiased (one extra draw per
+        # bounce, every lane, after the scatter budget).
         seed, u_t = rng_mod.random_float(seed)
         p = jnp.clip(jnp.max(beta, axis=-1), RR_MIN_P, 1.0)
         do = live & (depth >= rr_start)
@@ -169,10 +147,10 @@ def trace(
       origin, direction: [R, 3] primary rays.
       seed: [R] u32, already advanced past ray generation.
       max_depth: static bounce cap (reference camera.cu:223).
-      intersector: "fast" (MXU brute force), "brute" (reference port),
+      intersector: "fast" (matmul brute force), "brute" (reference port),
         or "bvh" (scene.bvh must be built).
-      rng_mode: "fixed" (8-draw budget per bounce, the fast SIMD-uniform
-        stream shared with the Pallas kernel) or "reference" (per-lane
+      rng_mode: "fixed" (8-draw budget per bounce, a stream uniform
+        across the batch) or "reference" (per-lane
         streams advance exactly like the reference binary — rejection
         sampling + conditional consumption; see scatter_reference).
       early_exit: run the depth loop as a while_loop that stops as soon as

@@ -1,12 +1,11 @@
 """Transient-failure resilience for long renders.
 
 The reference binary has no failure handling at all (a CUDA fault kills
-the run, src/main.cu); on TPU pods the common failures are TRANSIENT —
-a preempted worker, a dropped tunnel, a briefly unavailable backend —
+the run, src/main.cu). Some failures of a distributed run are TRANSIENT
+— a lost worker, a dropped connection, a briefly unavailable backend —
 and long animations should ride through them. This module provides the
 retry half of the §5 'failure detection' subsystem (checkpoint/resume
-for fits lives in tracer.opt.fit; bench.py's watchdog subprocess covers
-hangs).
+for fits lives in tracer.opt.fit).
 
 Only errors that look transient are retried: JAX runtime errors whose
 message carries UNAVAILABLE / DEADLINE_EXCEEDED / 'worker process
